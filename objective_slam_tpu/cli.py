@@ -36,7 +36,7 @@ def csv_list(value: str) -> list[str]:
 def configure_options(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         prog="objective_slam_tpu",
-        description="TPU-native PPF 6-DoF registration")
+        description="PPF 6-DoF registration")
     # runstate parameters (alignment.cpp:123-127)
     p.add_argument("--dev", type=int, default=0,
                    help="JAX device index to use")

@@ -29,7 +29,7 @@ class PPFConfig:
         alignment.cpp:134-135).
       max_poses: static capacity for surviving (ref point, model point, α)
         vote cells turned into candidate poses. The reference keeps a
-        data-dependent count (model.cu:169); on TPU we keep the top
+        data-dependent count (model.cu:169); under static shapes we keep the top
         `max_poses` by count and mask those below threshold. Exact whenever
         the true survivor count <= max_poses.
       cluster_center_cell: if False, replicate the reference quirk of
@@ -47,7 +47,7 @@ class PPFConfig:
       validation_rotation_threshold_deg: match iff rotation error (rad) below
         this many degrees (alignment.cpp:143-144, default 12°).
       refine_icp: if True, refine the winning pose with ICP (ops/icp.py,
-        MXU-native NN + solve) inside the jitted match — the Drost
+        matmul NN + solve) inside the jitted match — the Drost
         winner's rotation error is bounded by the 2π/30 α quantization
         (~±6°); ICP takes it to the noise floor. Extension: the reference
         stops at the clustered winner (model.cu:293-295).
@@ -72,11 +72,11 @@ class PPFConfig:
         survivors lets a fully-visible distractor outscore an occluded
         true instance (EVAL.md §4).
       rescore_min_vote_frac: the near-tie threshold for the above.
-      engine: voting engine. "fast" = the TPU-native exact hot path —
+      engine: voting engine. "fast" = the exact hot path —
         block-expansion voting (ops/voting_block.py: occupied-key
-        dictionary matmul + bucket-row gather + fused Pallas tally) when
+        dictionary matmul + bucket-row gather + scatter-add tally) when
         the model fits its packing budgets, else the legacy
-        sublane-tga engine (ops/voting_fast.py); the two produce
+        packed-lookup engine (ops/voting_fast.py); the two produce
         bit-identical tallies. "reference" = the simple expansion engine
         (ops/voting.py, readable twin used for golden-testing). Tallies are
         identical up to fixed-point α-bin boundary moves (< 0.5% of votes;

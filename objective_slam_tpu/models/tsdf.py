@@ -3,7 +3,7 @@
 The reference README frames the project as a KinFu/SLAM++ mapping system but
 contains no TSDF code (SURVEY.md §0); BASELINE.json lists "streaming RGB-D:
 KinFu-style TSDF fusion + continuous object recognition" as a target config.
-This module provides that capability TPU-natively:
+This module provides that capability with static-shape dense ops:
 
   * `TSDFVolume` — a dense truncated-signed-distance voxel grid (static
     shape, jit-friendly pytree);
@@ -14,7 +14,7 @@ This module provides that capability TPU-natively:
     surface receive positive updates — **free-space carving**: spurious
     geometry from earlier frames is erased by later observations. Dense
     over the volume (one gather per voxel into the depth image; no
-    scatter), which is the TPU-native formulation;
+    scatter);
   * `integrate` — point-splat fallback for cloud-only input (no camera
     model): each point splats signed distances along its normal into the
     truncation band. No carving — use integrate_depth when depth images
@@ -275,13 +275,11 @@ def integrate_depth_banded(volume: TSDFVolume, depth, intrinsics, T_cw,
     sphere can overlap the measured surface's truncation band
     (`_band_block_mask`, conservative). The band fraction is
     SCENE-DEPENDENT: a thin object is a few % of blocks, while the
-    256³ smoke's full-extent tabletop measures 49% (16.1k of 32.8k
-    blocks) — and still cuts 235 → 164 ms/frame (tsdf_smoke_256.json),
-    because the dense form pays one depth-image gather per voxel (16.7M
-    element gathers ≈ the ~10 ns indexed-op floor) on every voxel while
-    this path compacts candidate blocks with the repo's sort-based
-    stream compaction and gathers/scatters whole 512-voxel blocks
-    (row-granular DMA, ~200x cheaper per element moved).
+    256³ smoke's full-extent tabletop covers 49% (16.1k of 32.8k
+    blocks). The dense form pays one depth-image gather per voxel on
+    every voxel; this path compacts candidate blocks with the repo's
+    sort-based stream compaction and gathers/scatters whole 512-voxel
+    blocks.
 
     SEMANTICS vs dense: bit-equal on every voxel within the truncation
     band of the current frame (tests enforce it); voxels OUTSIDE the band
@@ -382,9 +380,8 @@ def raycast_depth(volume: TSDFVolume, intrinsics, T_wc, shape,
     positive→negative TSDF zero crossing, linearly interpolated. Returns
     (h, w) float32 depth; 0 where no crossing.
 
-    Gathers are the cost here (~10 ns/element on this chip): a trilinear
-    sample is 16 of them per pixel per step, so marching all n_steps
-    trilinearly costs n_steps·16. Instead the coarse march brackets
+    Gathers are the cost here: a trilinear sample is 16 of them per pixel
+    per step, so marching all n_steps trilinearly costs n_steps·16. Instead the coarse march brackets
     crossings with NEAREST reads (1 gather/step) of a 3³-MIN-POOLED
     observed-TSDF field: the pooled field is negative wherever ANY voxel
     of a trilinear neighborhood is, so each of its sub-zero dips is a
@@ -400,7 +397,7 @@ def raycast_depth(volume: TSDFVolume, intrinsics, T_wc, shape,
     continue to the surface behind it. With a single bracket the
     tsdf_smoke tabletop view loses 26% of its object pixels to this;
     three brackets recover them to the true sub-voxel silhouette
-    residue (docs/eval/raycast_gap_256.json, tools/raycast_gap_study.py).
+    residue (tools/raycast_gap_study.py measures it).
     The long forward reach matters too: at grazing incidence θ the ray
     enters the pool's √3·voxel_size shell ~√3·voxel_size/cos θ before
     actually crossing, so each window covers incidence up to
@@ -478,7 +475,7 @@ def raycast_depth(volume: TSDFVolume, intrinsics, T_wc, shape,
     # Observed-TSDF with a NaN sentinel for unobserved voxels: folds the
     # weight-validity test into the value itself, so each trilinear corner
     # costs ONE gather instead of two (tsdf + weight) — gathers are the
-    # whole cost of the fine pass (~10 ns/element on this chip).
+    # whole cost of the fine pass.
     obs_field = jnp.where(volume.weight > 0.0, volume.tsdf, jnp.nan)
 
     def sample(t):
@@ -620,8 +617,9 @@ def track_frame(volume: TSDFVolume, depth, intrinsics, T_cw_init,
     and solves the 6×6 point-to-plane normal equations; the se(3) step is
     trust-regioned (the plane linearization overshoots on early
     iterations, same lesson as ops/icp.py) and lifted by Rodrigues.
-    All geometry matmuls pin precision=HIGHEST (bf16 random-walks
-    iterated transforms on TPU — CLAUDE.md).
+    All geometry matmuls pin precision=HIGHEST (a reduced-precision
+    default — bf16 passes, or TF32 on a GPU — random-walks iterated
+    transforms; see ops/icp.refine_pose).
 
     Args:
       depth: (h, w) metric depth of the NEW frame (0/non-finite = none).

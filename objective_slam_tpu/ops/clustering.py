@@ -1,4 +1,4 @@
-"""Pose clustering: dense TPU formulation + greedy CPU-reference mode.
+"""Pose clustering: dense static-shape formulation + greedy CPU-reference mode.
 
 The reference clusters candidate poses two ways:
 
@@ -15,9 +15,9 @@ The reference clusters candidate poses two ways:
     clustering by (translation, rotation-angle) thresholds, cluster votes
     summed, top-3 clusters averaged (Gramkow quaternion averaging).
 
-TPU rebuild: candidate pose counts are bounded (top-K from voting), so the
+Rebuild: candidate pose counts are bounded (top-K from voting), so the
 hash join becomes a **dense P×P masked reduction** — quaternion dots via one
-MXU matmul, grid-cell adjacency via integer comparisons — with bit-equal
+matmul, grid-cell adjacency via integer comparisons — with bit-equal
 semantics minus FNV-collision artifacts (documented deviation). The greedy
 CPU mode is kept as a NumPy implementation for small-input validation.
 """
@@ -29,7 +29,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-# Pin full fp32 matmul precision (TPU defaults to bf16 passes otherwise).
+# Pin full fp32 matmul precision (the default may be bf16 passes or TF32).
 _HI = jax.lax.Precision.HIGHEST
 import numpy as np
 
@@ -77,7 +77,7 @@ def cluster_poses_dense(translations, quats, weighted_counts, valid,
     if not include_center_cell:
         adjacent = adjacent & ~same_cell
 
-    # Quaternion distance on the MXU: one (P,4)x(4,P) matmul.
+    # Quaternion distance: one (P,4)x(4,P) matmul.
     qdot = jnp.dot(q, q.T, preferred_element_type=jnp.float32, precision=_HI)
     quat_ok = jnp.abs(8.0 * (1.0 - qdot)) < jnp.float32(rot_thresh) ** 2
 

@@ -1,13 +1,13 @@
-"""ICP pose refinement — point-to-point (Kabsch) and point-to-plane, MXU-native.
+"""ICP pose refinement — point-to-point (Kabsch) and point-to-plane, matmul-based.
 
 Not present in the reference (its pipeline ends at the clustered Hough
 winner, model.cu:293-295); listed as a rebuild extension in BASELINE.json
-("pose clustering plus ICP refinement run as batched Procrustes/SVD solves
-on the MXU"). Refines the Drost pose — whose rotation error is bounded by
+("pose clustering plus ICP refinement run as batched Procrustes/SVD
+solves"). Refines the Drost pose — whose rotation error is bounded by
 the 2π/30 α quantization (~±6°) — down to the noise floor.
 
 Design: fixed-iteration lax.fori loop (static shapes); nearest neighbours
-via the ‖a−b‖² = ‖a‖²+‖b‖²−2a·b distance matrix on the MXU, chunked over
+via the ‖a−b‖² = ‖a‖²+‖b‖²−2a·b distance matrix, chunked over
 scene points; correspondence rejection by distance threshold. Two solvers:
 weighted Procrustes (Kabsch, 3×3 SVD) for point-to-point, and a linearized
 6×6 normal-equation solve for point-to-plane. Point-to-plane is used when
@@ -35,7 +35,7 @@ class ICPResult(NamedTuple):
 
 # Scene-chunking budget for the NN distance tile (n_m × chunk f32): one
 # chunk when the whole tile fits, else 16k-point chunks. A sequential
-# lax.map over chunks costs ~per-chunk dispatch overhead on TPU, so for the
+# lax.map over chunks costs per-chunk loop overhead, so for the
 # common case (hundreds of model points × a 100k scan ≈ 28M floats) the
 # single-tile path is markedly faster inside the 24-iteration loop.
 _NN_TILE_BUDGET = 64 * 1024 * 1024
@@ -50,11 +50,11 @@ def refine_pose(model_points, scene_points, init_pose, *,
     """Refine `init_pose` so that model_points @ Rᵀ + t aligns with
     scene_points.
 
-    ALL matmuls here run at HIGHEST precision: the TPU default (bf16
-    passes) re-rounds the 4×4 pose chain dT·T every iteration, which
-    random-walks the rotation ~0.5-1° PER ITERATION — measured as a
-    monotonic 7°→21° divergence on TPU while CPU converged on identical
-    inputs. The big NN dot is MXU-bound either way; the tiny 3×3/4×4
+    ALL matmuls here run at HIGHEST precision: a reduced-precision default
+    (bf16 passes, or TF32 on a GPU) re-rounds the 4×4 pose chain dT·T
+    every iteration, which random-walks the rotation ~0.5-1° PER
+    ITERATION — measured once as a monotonic 7°→21° divergence on a bf16
+    default while fp32 converged on identical inputs. The tiny 3×3/4×4
     chains are free at f32.
 
     scene_points may be the FULL-RESOLUTION scan (not the voxelized cloud):
@@ -123,7 +123,7 @@ def refine_pose(model_points, scene_points, init_pose, *,
         def one(args):
             sc, sqc = args
             d2 = (mt_sq + sqc[None, :]
-                  - 2.0 * jnp.dot(mt, sc.T, precision=_HI))  # (n_m, ch) MXU
+                  - 2.0 * jnp.dot(mt, sc.T, precision=_HI))  # (n_m, ch)
             i = jnp.argmin(d2, axis=1)
             return (jnp.take_along_axis(d2, i[:, None], axis=1)[:, 0], i)
 

@@ -21,7 +21,7 @@ import jax
 import jax.numpy as jnp
 
 # All geometric contractions are tiny (k<=4); pin full fp32 precision so
-# TPU does not lower them to bf16 MXU passes (2e-3 error otherwise).
+# no backend lowers them to bf16 or TF32 passes (2e-3 error otherwise).
 _HI = jax.lax.Precision.HIGHEST
 
 # Sentinel for pairs that produce no feature: self-pairs (kernel.cu:438-441),

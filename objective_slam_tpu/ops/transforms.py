@@ -1,9 +1,9 @@
 """Batched rigid-transform and quaternion math (pure jnp, fp32).
 
-TPU-native equivalent of the reference device math library
+Equivalent of the reference device math library
 (pcl/alignment/src/cuda/kernel.cu:32-401 and matlab/utils/pk-matlabfns/):
 everything is written to broadcast over arbitrary leading batch dimensions so
-it vectorizes onto the VPU/MXU with `vmap`/plain broadcasting instead of the
+it vectorizes with `vmap`/plain broadcasting instead of the
 reference's per-thread 4x4 scalar loops.
 
 Conventions:
@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 
 # All geometric contractions are tiny (k<=4); pin full fp32 precision so
-# TPU does not lower them to bf16 MXU passes (2e-3 error otherwise).
+# no backend lowers them to bf16 or TF32 passes (2e-3 error otherwise).
 _HI = jax.lax.Precision.HIGHEST
 
 

@@ -10,8 +10,8 @@ fraction of model points whose transformed position has a scene point
 within `max_dist`; pick the best-scoring candidate among the threshold
 survivors.
 
-TPU-native: candidate × model × scene distance tensors ride the MXU
-(‖a−b‖² expansion), chunked over candidates with lax.map to bound memory.
+Candidate × model × scene distance tensors are matmuls (‖a−b‖²
+expansion), chunked over candidates with lax.map to bound memory.
 Enabled via PPFConfig.rescore_poses.
 """
 

@@ -3,7 +3,7 @@
 The reference implements voting as a Thrust pipeline: per-scene-pair binary
 search into sorted model hash keys, two-phase count/scan/scatter into a u64
 vote array, then sort + histogram + threshold (model.cu:95-171,
-kernel.cu:480-554). On TPU we keep everything static-shape and dense:
+kernel.cu:480-554). Here everything is static-shape and dense:
 
   * the model "hash table" is a **direct-addressed table** over packed
     integer keys (counts + offsets + key-sorted pair arrays) — no binary
@@ -18,8 +18,8 @@ kernel.cu:480-554). On TPU we keep everything static-shape and dense:
     *pair* (see ops.transforms.alpha_angle) — replacing the reference's two
     dense 4×4 chains per vote (kernel.cu:302-349);
   * tallies land in a **dense accumulator** over (scene ref, model point,
-    α bin) — the MATLAB voting_scheme.m:20 dense formulation, which is the
-    TPU-native shape (vote codes, sort and histogram disappear).
+    α bin) — the MATLAB voting_scheme.m:20 dense formulation, the
+    static-shape answer (vote codes, sort and histogram disappear).
 """
 
 from __future__ import annotations
@@ -153,7 +153,7 @@ def cast_votes(scene_keys, scene_alpha, table: KeyTable, n_model: int,
 
     # Decode vote slot -> owning scene pair: scatter each pair's index at its
     # first vote slot, then a running max (lax.cummax — the generic
-    # associative_scan stalls XLA's TPU compile at multi-million sizes).
+    # associative_scan compiled very slowly at multi-million sizes).
     # Cheaper than per-vote binary search: 2 memory touches per vote
     # instead of ~log2(S) gathers.
     head = jnp.zeros((vote_cap,), jnp.int32)
@@ -221,8 +221,8 @@ def top_votes(accumulator, vote_count_threshold: float,
     reference keeps a data-dependent count, impossible under static shapes
     (SURVEY.md §7 'Hard parts').
 
-    For large accumulators a flat lax.top_k is slow on TPU (~65 ms at 19M
-    cells), so selection is hierarchical: block maxima -> top blocks ->
+    For large accumulators a flat lax.top_k over every cell is slow, so
+    selection is hierarchical: block maxima -> top blocks ->
     exact top_k inside the gathered blocks. `n_blocks = max(max_poses, 64)`
     blocks are gathered, which makes the selection EXACT whenever the true
     survivor count ≤ max_poses: every block holding a survivor has

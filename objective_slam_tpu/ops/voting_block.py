@@ -1,20 +1,16 @@
-"""Block-expansion exact voting: zero per-element indexed ops in the hot path.
+"""Block-expansion exact voting: row-granular expansion + scatter tally.
 
-The legacy fast engine (ops/voting_fast.py) pays the measured TPU floor of
-~10-16 ns for ONE indexed element access per vote (sublane take_along_axis
-into the pair table) — ~500 ms for a 30M-vote scene. This engine removes
-per-ELEMENT indexing entirely by exploiting two structural facts:
+The legacy fast engine (ops/voting_fast.py) reads the pair table once per
+VOTE. This engine moves every indexed step of the expansion from vote to
+ROW granularity by exploiting two structural facts:
 
   1. votes of one scene pair read CONSECUTIVE pair-table slots (the bucket),
-     so padding every bucket to whole 128-lane ROWS turns the per-vote
-     gather into a per-row gather — measured ~6.5 ns per 128-wide row
-     (~0.05 ns/element, 200x cheaper) because XLA lowers row gathers to
-     row-granular DMA instead of element-serial moves;
+     so padding every bucket to whole 128-slot ROWS turns the per-vote
+     gather into a per-row gather of 512-byte rows;
   2. the model occupies few distinct keys (K_occ), so the "hash lookup" of
      each scene pair becomes an equality compare against the occupied-key
-     dictionary contracted on the MXU — (count, bucket row start) arrive as
-     one f32 matmul (exact: integer values < 2^24), replacing a second
-     element-serial gather pass.
+     dictionary, contracted as one exact matmul
+     (voting_fast.dict_lookup) that returns (count, bucket row start).
 
 Pipeline (all static shapes):
   scene keys ──(S, K_occ) one-hot ⋅ (K_occ, 2) dictionary──> cnt, row_start
@@ -23,17 +19,15 @@ Pipeline (all static shapes):
     next head — pad rows/slots are handled by pair-table sentinels, not
     masks)
   pair rows ──ONE row gather──> (ROW_CAP, 128) packed (m << 22 | α_m_fix)
-    ──fused XLA precode (integer α-binning, identical fixed-point formula
-    to voting_fast — tallies are bit-equal)──> packed one-hot codes
-  Pallas tally: per 64-row chunk, TWO iota compares per slot build the
-    one-hot operands + MXU accumulate at full systolic width (H·32 narrow
-    side), written DIRECTLY into the per-reference-row accumulator via a
-    scalar-prefetched chunk→row output map.
+  tally: integer α-binning (the fixed-point formula voting_fast uses —
+    tallies are bit-equal) and one int32 scatter-add per slot into the
+    (R, n_m, 32) accumulator; a chunk→row map gives each vote row its
+    reference row.
 
 Replaces the role of ppf_vote_count_kernel + ppf_vote_kernel + vote
 sort/histogram (reference src/cuda/kernel.cu:480-554, model.cu:95-151).
 
-Built only for models that fit the packing budgets (n_m <= 1024 model
+Built only for models that fit the packing budgets (n_m < 1024 model
 points, K_occ <= BLOCK_MAX_KOCC occupied keys); larger models fall back to
 the legacy fast paths automatically (see voting_fast.build_fast_tables).
 """
@@ -49,48 +43,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
 from objective_slam_tpu.ops import ppf as ppf_ops
 from objective_slam_tpu.ops import voting as voting_ref
 from objective_slam_tpu.ops import voting_fast as vf
 
 LANES = 128
-CHUNK_ROWS = 64                 # tally chunk = 64 rows = 8192 vote slots
-                                # (row-alignment padding costs CHUNK_ROWS
-                                # rows per reference row — 128 measured
-                                # ~0.5 ms faster at bench scale but doubles
-                                # that padding; 64 is the balance)
-TALLY_GROW = 64                 # vote rows fused per MXU contraction
-                                # (k = 8192; swept on v5e — amortizes the
-                                # per-group loop/accumulate fixed costs)
-TALLY_DTYPE = "int8"            # one-hot operand dtype ("int8" contracts
-                                # at the MXU's 2x int8 rate and accumulates
-                                # in int32 — exact by construction; swept
-                                # vs bfloat16 on v5e)
-TALLY_CMP_DTYPE = "int32"       # iota-compare dtype for the in-kernel
-                                # one-hot build (codes fit 15 bits, so
-                                # int16 is exact). The compares are the
-                                # tally's VPU bottleneck (~224/slot after
-                                # _precode); sub-32-bit vector compares
-                                # could pack multiple lanes per cycle —
-                                # but BOTH int16 and uint8 fail Mosaic
-                                # compilation on the v5e toolchain
-                                # (remote-compile crash; swept round 5,
-                                # tools/ablate_tally_cmp.py), so int32 is
-                                # the only working choice. Bit-equality
-                                # vs the fast engine is enforced by the
-                                # bench gate either way.
+CHUNK_ROWS = 64                 # vote rows per reference-row alignment
+                                # unit: each reference row's rows are
+                                # padded to a multiple, so capacity sizing
+                                # adds CHUNK_ROWS rows per reference row
 ALPHA_BITS = 22                 # fixed-point α (shared with voting_fast)
 M_BITS = 32 - ALPHA_BITS        # model point index field (n_m <= 1024)
 _ALPHA_SCALE = (1 << ALPHA_BITS) / (2.0 * math.pi)
-# Dictionary-compare cost is S x K_pad; beyond this the legacy tga path wins
-# (sparse buckets also make row padding expensive).
+# Dictionary-compare cost is S x K_pad; beyond this the legacy fast engine
+# takes over (sparse buckets also make row padding expensive).
 BLOCK_MAX_KOCC = 4096
-# Scene-pair chunk for the dictionary matmul: bounds the materialized
-# one-hot to DICT_CHUNK x K_pad f32.
-DICT_CHUNK = 32768
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -110,7 +77,7 @@ class BlockTables:
                equals -2, so padded/invalid scene pairs match nothing by
                construction).
     occ_vals — (K_pad, 2) f32 [bucket vote count, bucket start ROW] — the
-               dictionary payload contracted on the MXU.
+               dictionary payload of the one-hot contraction.
     pair2d   — (n_rows + 1, 128) uint32 (m << ALPHA_BITS | α_m fixed
                point). Each bucket is padded to whole rows with the
                SENTINEL slot 0xFFFFFFFF, whose m field decodes to
@@ -176,74 +143,15 @@ def build_block_tables(table: voting_ref.KeyTable,
                        k_occ=k_occ, n_rows=n_rows)
 
 
-DICT_DIGITS = True              # single-pass digit-split contraction vs
-                                # the legacy 6-pass f32 HIGHEST matmul
-                                # (measured on v5e — see _dict_match_digits)
-
-
-def _dict_match_digits(flat_keys, tables: BlockTables):
-    """(cnt, row_start) via a SINGLE-PASS bf16 dictionary matmul.
-
-    The legacy form needs Precision.HIGHEST (6 bf16 MXU passes) because the
-    payload integers (< 2^24) exceed bf16's 8-bit mantissa; the digit-split
-    contraction (voting_fast.dict_digits_matmul — four 7-bit digits cover
-    2^24, exact by construction) does it in one default-precision pass.
-    The (K_pad, 8) digit table is recomputed from occ_vals per call — a
-    K_pad-sized op, free next to the S×K_pad contraction."""
-    out = vf.dict_digits_matmul(flat_keys, tables.occ_keys,
-                                tables.occ_vals, n_digits=4)
-    cnt = out[:, 0].astype(jnp.int32)
-    brs = out[:, 1].astype(jnp.int32)
-    return cnt, brs
-
-
 def _dict_match(flat_keys, tables: BlockTables):
-    """(cnt, row_start) per scene pair via one-hot dictionary matmul.
+    """(cnt, row_start) per scene pair via the one-hot dictionary matmul.
 
     Exact: each key matches at most one dictionary entry (occupied keys are
-    distinct) and payload integers are < 2^24.
-
-    On TPU the compare FUSES into the matmul's operand read (verified: the
-    one-shot S×K_pad contraction costs ~2 ms at S=1.6M, K_pad=512 — HBM
-    traffic is the inputs/outputs only, not the one-hot). A hand-written
-    Pallas equivalent measured SLOWER (~6 ms: the (C,1)→lanes broadcast
-    relayout per block beats the fused XLA form). On CPU the one-hot WOULD
-    materialize (S·K_pad·4 bytes), so the host path chunks it."""
-    S = flat_keys.shape[0]
-
-    if jax.default_backend() == "tpu":
-        if DICT_DIGITS:
-            return _dict_match_digits(flat_keys, tables)
-        onehot = (flat_keys[:, None] == tables.occ_keys[None, :]) \
-            .astype(jnp.float32)
-        # HIGHEST precision: the payload integers (counts, row starts)
-        # exceed bf16's 8-bit mantissa; a default-precision (bf16) pass
-        # silently rounds them.
-        out = jnp.dot(onehot, tables.occ_vals,
-                      preferred_element_type=jnp.float32,
-                      precision=jax.lax.Precision.HIGHEST)
-        return out[:, 0].astype(jnp.int32), out[:, 1].astype(jnp.int32)
-
-    chunk = min(DICT_CHUNK, _ceil_to(S, LANES))
-    S_pad = _ceil_to(S, chunk)
-    keys_p = jnp.concatenate(
-        [flat_keys, jnp.full((S_pad - S,), -2, jnp.int32)])
-
-    def one(kc):
-        onehot = (kc[:, None] == tables.occ_keys[None, :]) \
-            .astype(jnp.float32)
-        # HIGHEST precision: the payload integers (counts, row starts)
-        # exceed bf16's 8-bit mantissa; a default-precision (bf16) pass
-        # silently rounds them.
-        return jnp.dot(onehot, tables.occ_vals,
-                       preferred_element_type=jnp.float32,
-                       precision=jax.lax.Precision.HIGHEST)  # (chunk, 2)
-
-    out = jax.lax.map(one, keys_p.reshape(-1, chunk))
-    out = out.reshape(S_pad, 2)[:S]
-    cnt = out[:, 0].astype(jnp.int32)
-    brs = out[:, 1].astype(jnp.int32)
-    return cnt, brs
+    distinct), payload integers are < 2^24, and misses (padding −2 never
+    equals a scene key, INVALID_KEY matches nothing) return 0 counts."""
+    out = vf.dict_lookup(flat_keys, tables.occ_keys, tables.occ_vals,
+                         n_digits=4)
+    return out[:, 0].astype(jnp.int32), out[:, 1].astype(jnp.int32)
 
 
 def rows_for_counts(cnt):
@@ -281,8 +189,7 @@ def cast_votes_block(scene_keys, scene_alpha, tables: BlockTables,
                 seg_cap)
     acc = _tally(pp, alpha_row,
                  r_of_chunk_start=row_start_p, R=R, n_model=n_model,
-                 d_angle=d_angle, chunk_rows=chunk_rows, row_cap=row_cap,
-                 total_rows_p=total_rows_p)
+                 d_angle=d_angle, chunk_rows=chunk_rows, row_cap=row_cap)
     return voting_ref.VoteResult(accumulator=acc, num_votes=total,
                                  overflowed=overflow)
 
@@ -337,11 +244,9 @@ def _expand(scene_keys, scene_alpha, tables: BlockTables, vote_cap: int,
                           * jnp.float32(_ALPHA_SCALE)).astype(jnp.int32)
     alpha_fix = jnp.clip(alpha_fix, 0, (1 << ALPHA_BITS) - 1)
 
-    # Stream-compact the nonzero segments (typically a few % of S). Every
-    # per-element indexed op on this TPU costs ~10-30 ns/element, so the
-    # compaction is an S-sized sort (sorts run at HBM bandwidth) followed
-    # by seg_cap-sized row gathers — NOT an S-sized scatter (which alone
-    # used to cost ~30 ms at 1.6M pairs). Sorting where(nz, iota, INT_MAX)
+    # Stream-compact the nonzero segments (typically a few % of S): an
+    # S-sized sort followed by seg_cap-sized row gathers, so every later
+    # indexed step runs at seg_cap scale. Sorting where(nz, iota, INT_MAX)
     # is a SINGLE-array sort whose sorted prefix IS the compacted index
     # list (iota is strictly increasing, so stability is free) — half the
     # payload of the argsort(key, iota) form.
@@ -363,14 +268,11 @@ def _expand(scene_keys, scene_alpha, tables: BlockTables, vote_cap: int,
     c_row = gidx // n                       # owning reference row
 
     # Two per-row transports (pair-table source row via u, α_s), each as
-    # cumsum-of-diffs. Measured scatter economics on this chip: 1-D
-    # scatters cost ~13 ns/row vs ~50 ns/row for (N, k) row scatters, and
-    # within one reference row consecutive segments are back-to-back
-    # (heads = exclusive scan), so the tail correction of segment j−1
-    # FOLDS into the head diff of segment j. What remains is ONE 1-D
-    # head scatter per channel plus an R-sized correction at each
-    # reference row's padding boundary — ~4x cheaper than the head+tail
-    # row-scatter pair it replaces.
+    # cumsum-of-diffs. Within one reference row consecutive segments are
+    # back-to-back (heads = exclusive scan), so the tail correction of
+    # segment j−1 FOLDS into the head diff of segment j. What remains is
+    # ONE 1-D head scatter per channel plus an R-sized correction at each
+    # reference row's padding boundary.
     #
     # u = brs − head + OFFSET with OFFSET > row_cap keeps u ≥ 1 inside
     # segments while the fill is exactly 0 on padding rows — the fill
@@ -417,7 +319,7 @@ def _expand(scene_keys, scene_alpha, tables: BlockTables, vote_cap: int,
 
     overflow = overflow | seg_overflow
 
-    # THE gather: one row-granular DMA per vote row.
+    # THE gather: one whole 128-slot row per vote row.
     pp = jnp.take(tables.pair2d, src_row, axis=0)           # (row_cap, 128)
 
     return (pp, alpha_row, row_start_p, total, overflow,
@@ -452,180 +354,28 @@ def _unpack_bin(pp_i32, a_s, n_angle):
     return m, a_bin
 
 
-def _precode(pp_i32, alpha_row, n_angle):
-    """Packed one-hot codes for the tally kernel, computed ONCE in XLA.
+def _tally(pp, alpha_row, r_of_chunk_start, R, n_model, d_angle,
+           chunk_rows, row_cap):
+    """Unpack + α-bin every gathered slot and scatter-add one count per
+    slot into the (R, n_model, ALPHA_PAD) accumulator.
 
-    code = ((m_hi · ALPHA_PAD + a_bin) << 7) | m_lo  (< 2^15), so the
-    Pallas kernel's one-hot generation collapses to exactly TWO iota
-    compares per slot — a 128-row wide operand from the low 7 bits and an
-    (H · ALPHA_PAD)-row narrow operand from the high bits — instead of the
-    previous in-kernel α broadcast loop + per-h masking (~540 VPU ops per
-    slot, the measured round-3 tally bottleneck). This pass is elementwise
-    over the gathered vote rows, so XLA fuses it into the row gather's
-    consumer; α never enters the kernel.
-
-    Sentinel slots (0xFFFFFFFF) decode to m_hi = 7, m_lo = 127: for models
-    with H < 8 the narrow code ≥ H·ALPHA_PAD misses the one-hot entirely;
-    at H = 8 it tallies into reserved column 1023, which the accumulator
-    slice discards (the build gate keeps n_m < 2^M_BITS strictly) —
-    bit-identical to the previous per-h masked form."""
-    m, a_bin = _unpack_bin(pp_i32, alpha_row[:, None], n_angle)
-    m_lo = m & 127
-    m_hi = jax.lax.shift_right_logical(m, 7)
-    return ((m_hi * voting_ref.ALPHA_PAD + a_bin) << 7) | m_lo
-
-
-def _tally(pp, alpha_row, r_of_chunk_start, R, n_model,
-           d_angle, chunk_rows, row_cap, total_rows_p=None):
-    """Fused unpack + α-bin + one-hot MXU tally, accumulated DIRECTLY into
-    the per-reference-row accumulator.
-
-    TPU path: the output block index is data-driven (scalar-prefetched
-    chunk→row map): consecutive chunks of one reference row revisit the
-    same (1, m_pad, A) block, which stays resident in VMEM and is written
-    back once per row — no (n_chunks, m_pad, A) partials array, no
-    cross-chunk cumsum, no row-boundary slicing. Chunks past the true row
-    count (capacity slack) are predicated off, so over-sizing vote_cap
-    costs DMA only, not MXU work.
-
-    Per group, ONE (H·A, K) narrow operand (so the MXU contraction runs at
-    N = H·A instead of H separate N = 32 passes — N < 128 wastes the
-    systolic array's width, measured ~3x on the bench workload) and one
-    (128, K) wide operand are each built with a SINGLE iota compare from
-    the precomputed packed codes (_precode) — the α broadcast and per-h
-    masking that made the round-3 kernel VPU-bound live in XLA now, fused
-    into the row gather."""
+    A vote row's reference row comes from the chunk→row map (row starts are
+    chunk-aligned by _expand). Sentinel slots decode to m = 2^M_BITS − 1,
+    which the build gate keeps ≥ n_model, so they — and every padding or
+    capacity-slack row, which points at the all-sentinel pair2d row — go to
+    the dropped index n_cells. Integer adds are exact in any order."""
     A = voting_ref.ALPHA_PAD
     n_chunks = row_cap // chunk_rows
-    m_pad = _ceil_to(n_model, 128)
     n_angle = int(round(2.0 * math.pi / d_angle))
     pp_i32 = pp.view(jnp.int32) if pp.dtype == jnp.uint32 else pp
 
-    G = chunk_rows
-    ppv = pp_i32.reshape(n_chunks, G, LANES)
-    av = alpha_row.reshape(n_chunks, 1, G)
-
-    if jax.default_backend() == "tpu":
-        H = m_pad // 128
-        # Rows per MXU contraction: GROW rows fuse into one k = GROW·128
-        # matmul (a free row-major HBM reshape), amortizing small-matmul
-        # setup.
-        GROW = TALLY_GROW
-        assert G % GROW == 0
-        n_grp = G // GROW
-        K = GROW * LANES
-        NA = H * A
-
-        # One-hot codes precomputed in XLA (fuses with the row gather);
-        # the kernel unpacks them with two shifts and two iota compares.
-        codes = _precode(pp_i32, alpha_row, n_angle)
-        ppg = codes.reshape(n_chunks, n_grp, K)
-
-        cmap, start_chunk = _chunk_row_map(r_of_chunk_start, R,
-                                           chunk_rows, n_chunks)
-        if total_rows_p is None:
-            live = jnp.full((1,), n_chunks, jnp.int32)
-        else:
-            live = jnp.minimum(
-                (total_rows_p + chunk_rows - 1) // chunk_rows,
-                n_chunks).reshape(1).astype(jnp.int32)
-
-        oh_dtype = jnp.dtype(TALLY_DTYPE)
-        acc_dtype = jnp.int32 if oh_dtype == jnp.int8 else jnp.float32
-
-        cmp_dtype = jnp.dtype(TALLY_CMP_DTYPE)
-
-        def kernel(cmap_ref, live_ref, pp_ref, out_ref):
-            i = pl.program_id(0)
-            first = jnp.logical_or(
-                i == 0, cmap_ref[i] != cmap_ref[jnp.maximum(i - 1, 0)])
-
-            @pl.when(first)
-            def _init():
-                out_ref[...] = jnp.zeros_like(out_ref)
-
-            @pl.when(i < live_ref[0])
-            def _accumulate():
-                iota_lo = jax.lax.broadcasted_iota(cmp_dtype, (128, K), 0)
-                iota_na = jax.lax.broadcasted_iota(cmp_dtype, (NA, K), 0)
-
-                def group(g, acc):
-                    pr = pp_ref[0, g, :][None, :]                # (1, K)
-                    # Two-level one-hot from the precomputed code: the 7
-                    # low bits build the 128-row WIDE operand, the high
-                    # bits (m_hi · A + a_bin) the (H·A)-row narrow operand
-                    # — two iota compares per slot total, in the narrow
-                    # TALLY_CMP_DTYPE (the code fits 15 bits). No validity
-                    # mask: pad slots/rows carry the pair-table sentinel,
-                    # whose code misses the narrow one-hot (H < 8) or
-                    # lands in the reserved m column the accumulator
-                    # slice discards (H = 8) — see _precode.
-                    m_lo = (pr & 127).astype(cmp_dtype)
-                    c_hi = jax.lax.shift_right_logical(
-                        pr, 7).astype(cmp_dtype)
-                    om_lo = (m_lo == iota_lo).astype(oh_dtype)   # (128, K)
-                    oa = (c_hi == iota_na).astype(oh_dtype)      # (H·A, K)
-                    return acc + jax.lax.dot_general(
-                        om_lo, oa, (((1,), (1,)), ((), ())),
-                        preferred_element_type=acc_dtype)        # (128, H·A)
-
-                acc = jax.lax.fori_loop(
-                    0, n_grp, group,
-                    jnp.zeros((128, NA), acc_dtype))
-                # Exact: per-chunk per-cell counts <= G·128 << 2^24.
-                acci = acc.astype(jnp.int32)
-                for h in range(H):
-                    out_ref[0, h * 128:(h + 1) * 128, :] += \
-                        acci[:, h * A:(h + 1) * A]
-
-        grid_spec = pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=(n_chunks,),
-            in_specs=[
-                pl.BlockSpec((1, n_grp, K), lambda i, cm, lv_: (i, 0, 0)),
-            ],
-            out_specs=pl.BlockSpec((1, m_pad, A),
-                                   lambda i, cm, lv_: (cm[i], 0, 0)),
-        )
-        acc = pl.pallas_call(
-            kernel,
-            grid_spec=grid_spec,
-            out_shape=jax.ShapeDtypeStruct((R, m_pad, A), jnp.int32),
-        )(cmap, live, ppg)
-        # Rows with no vote chunks may never be visited (their block holds
-        # whatever the buffer contained) — zero them explicitly.
-        end_chunk = jnp.concatenate([start_chunk[1:], live])
-        has_chunks = end_chunk > start_chunk
-        acc = jnp.where(has_chunks[:, None, None], acc, 0)
-        return acc[:, :n_model, :]
-    else:
-        # XLA twin (CPU tests / interpret-free golden runs). Sentinel
-        # slots decode to m = 2^M_BITS − 1, which the build gate reserves
-        # (n_m < 2^M_BITS): it either misses the one-hot (m >= m_pad) or
-        # lands in a column the final slice discards.
-        iota_m = jax.lax.broadcasted_iota(jnp.int32, (1, m_pad), 1)
-        iota_a = jax.lax.broadcasted_iota(jnp.int32, (1, A), 1)
-
-        def chunk_partial(args):
-            p, a = args                          # (G,128),(1,G)
-            m, a_bin = _unpack_bin(p, a[0][:, None], n_angle)
-            mf = m.reshape(-1)
-            af = a_bin.reshape(-1)
-            om = (mf[:, None] == iota_m).astype(jnp.bfloat16)
-            oa = (af[:, None] == iota_a).astype(jnp.bfloat16)
-            return jax.lax.dot_general(
-                om, oa, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-
-        partials = jax.lax.map(chunk_partial, (ppv, av), batch_size=8)
-
-    # int32 chunk-combine (per-chunk partials are exact ints <= G*128; the
-    # cross-chunk cumsum can exceed 2^24 per cell — f32 exactness bound).
-    cum = jnp.cumsum(jnp.round(partials).astype(jnp.int32), axis=0)
-    cum = jnp.concatenate([jnp.zeros((1, m_pad, A), jnp.int32), cum],
-                          axis=0)
-    row_chunk_start = jnp.clip(r_of_chunk_start // chunk_rows, 0, n_chunks)
-    row_chunk_end = jnp.concatenate([
-        row_chunk_start[1:], jnp.full((1,), n_chunks, jnp.int32)])
-    acc = cum[jnp.clip(row_chunk_end, 0, n_chunks)] - cum[row_chunk_start]
-    return acc[:, :n_model, :]
+    cmap, _ = _chunk_row_map(r_of_chunk_start, R, chunk_rows, n_chunks)
+    r_of_row = jnp.broadcast_to(cmap[:, None],
+                                (n_chunks, chunk_rows)).reshape(-1, 1)
+    m, a_bin = _unpack_bin(pp_i32, alpha_row[:, None], n_angle)
+    n_cells = R * n_model * A
+    target = jnp.where(m < n_model, (r_of_row * n_model + m) * A + a_bin,
+                       n_cells)
+    acc = jnp.zeros((n_cells,), jnp.int32).at[target.reshape(-1)].add(
+        1, mode="drop")
+    return acc.reshape(R, n_model, A)

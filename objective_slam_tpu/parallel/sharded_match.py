@@ -2,19 +2,21 @@
 
 The reference is single-GPU (ppf.cu:37-49 picks one device; SURVEY.md §2.4).
 The Hough dimension — scene reference points — is embarrassingly parallel,
-so the TPU scale-out shards it across a `jax.sharding.Mesh` axis ("ref")
-with `shard_map`:
+so the multi-device scale-out shards it across a 1-D `jax.sharding.Mesh`
+axis ("ref") with `shard_map`:
 
   per-device:  its slice of reference rows -> pairwise keys/α -> local dense
                accumulator -> local top-K candidates + pose reconstruction
-  collective:  all_gather of the K candidates per device over ICI (plus a
+  collective:  all_gather of the K candidates per device (plus a
                psum'd saturation check against the GLOBAL threshold), then
                the global phase — relative threshold, dense clustering,
                optional geometric rescoring, winner, optional ICP — runs
                replicated in the enclosing jit.
 
-The only cross-chip traffic is D·K candidate poses (a few hundred KB), not
-the O(R·n) pair arrays — the collectives ride ICI once per match. Exact
+The only cross-device traffic is D·K candidate poses (a few hundred KB),
+not the O(R·n) pair arrays — one gather per match. The mesh follows the
+algorithm alone: the devices of one host reach each other all to all at
+the same rate (NVLink on an H100 host), so no axis layout matters. Exact
 w.r.t. the single-chip path whenever each shard's survivors fit in K
 (`topk_saturated` reports the truncation case at runtime, same contract as
 voting.top_votes).
@@ -206,7 +208,7 @@ def make_sharded_matcher(mesh: Mesh, model: ModelDescription,
     def _body(ref_idx, pad_mask, scene_points, scene_normals, mdl):
         counts, poses, weighted, nv, ovf, acc = _local_candidates(
             ref_idx, pad_mask, scene_points, scene_normals, mdl)
-        # Gather the candidate sets over ICI; the global phase then runs
+        # Gather the candidate sets; the global phase then runs
         # replicated in the enclosing jit — no further communication.
         g_counts = jax.lax.all_gather(counts, "ref").reshape(-1)     # (D*K,)
         g_poses = jax.lax.all_gather(poses, "ref").reshape(-1, 4, 4)

@@ -1,8 +1,8 @@
 """Self-contained interactive 3-D viewer export (WebGL, zero dependencies).
 
 The reference opens a PCLVisualizer window with per-cloud colors and a
-normals overlay toggled at startup (alignment.cpp:337-396). A TPU pod has
-no display server, so the rebuild's interactive equivalent is a single
+normals overlay toggled at startup (alignment.cpp:337-396). An
+accelerator host usually has no display server, so the rebuild's interactive equivalent is a single
 HTML file — vanilla WebGL1, no external scripts (works offline / from
 file://) — with the same affordances:
 

@@ -2,7 +2,7 @@
 
 The reference's tracing is #ifdef DEBUG cudaEvent timers around PPF
 generation and lookup ("Time to generate PPFs" scene.cu:72-98, "Time to
-lookup model" model.cu:271-305). The TPU equivalents here:
+lookup model" model.cu:271-305). The equivalents here:
 
   * `phase(name)` — wall-clock timer context that block_until_ready()s its
     result, logging "Time to <name>: X ms" at debug level (same shape as

@@ -165,7 +165,7 @@ def test_model_point_vote_weights(rng):
 
 def test_rescoring_with_distractors(rng):
     """Recovery among curved distractor objects with geometric rescoring
-    enabled (the TPU-scale flip case lives in the benchmark; this guards
+    enabled (the bench-scale case lives in the benchmark; this guards
     the rescoring path end-to-end on CPU)."""
     base = dict(max_poses=512, engine="correlation")
     mp, mn = synthetic.blob_cloud(rng, 150, bumps=0.25)   # weak features

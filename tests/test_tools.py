@@ -93,9 +93,9 @@ def test_bench_tally_gate_and_sized_runner_wiring(rng):
     on-device tally bit-equality gate and the sized-match runner. These
     shipped BROKEN in round 4 (commit 0f270d6 swapped cast_votes' last two
     args inside a bench-main closure; the suite could not reach it and
-    BENCH_r04 crashed). The helpers are now module-level so this test
-    traces the exact wiring the TPU bench runs; the round-4 bug fails here
-    at trace time."""
+    the round-4 bench crashed). The helpers are now module-level so this
+    test traces the exact wiring the device bench runs; the round-4 bug
+    fails here at trace time."""
     import jax
     import jax.numpy as jnp
 
@@ -154,26 +154,3 @@ def test_bench_tally_gate_and_sized_runner_wiring(rng):
     res = run_sized(jnp.asarray(sp), jnp.asarray(sn))
     assert res.pose.shape == (4, 4)
     assert not bool(res.overflowed)
-
-
-def test_tpu_queue_runner(tmp_path):
-    """One-process tool queue (tools/tpu_queue.py): stages run in order,
-    stdout lands in the per-stage capture file, and a failing stage is
-    counted without stopping the queue."""
-    import tpu_queue
-
-    (tmp_path / "q_stage_ok.py").write_text(
-        "def main(argv=None):\n"
-        "    print('OK', argv)\n"
-        "    return 0\n")
-    sys.path.insert(0, str(tmp_path))
-    try:
-        fails = tpu_queue.run_queue([
-            {"tool": "q_stage_ok", "argv": ["--x"],
-             "stdout": str(tmp_path / "o.txt")},
-            {"tool": "q_stage_definitely_missing"},
-        ])
-    finally:
-        sys.path.remove(str(tmp_path))
-    assert fails == 1
-    assert (tmp_path / "o.txt").read_text().startswith("OK")

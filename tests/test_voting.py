@@ -1,4 +1,4 @@
-"""Golden tests: the TPU voting engine vs the NumPy/MATLAB-semantics
+"""Golden tests: the voting engines vs the NumPy/MATLAB-semantics
 reference on small clouds — the rebuild's equivalent of the reference's
 MATLAB↔CUDA cross-validation (SURVEY.md §4.1)."""
 
@@ -438,7 +438,7 @@ def test_build_corr_tables_m3_matches_host_histogram(rng):
 
 def test_dict_digits_matmul_generic_exact(rng):
     """voting_fast.dict_digits_matmul (the single-pass bf16 digit-split
-    contraction both the block and correlation engines ride on TPU) is
+    contraction both the block and correlation engines ride on) is
     bit-exact against a plain numpy dictionary lookup at the correlation
     engine's operating point: K_pad = 2048 rank payloads (2 digits) and a
     1-digit small table, with misses and INVALID_KEY inputs."""

@@ -6,6 +6,7 @@ import math
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from objective_slam_tpu.config import PPFConfig
 from objective_slam_tpu.models import drost
@@ -133,11 +134,12 @@ def test_match_e2e_block_vs_legacy(rng):
 
 
 def test_dict_match_digits_exact(rng):
-    """The single-pass digit-split dictionary contraction
-    (_dict_match_digits, the TPU default) returns bit-identical
-    (count, row_start) to the chunked HIGHEST-precision path for payload
-    integers up to the engine's 2^24 exactness bound — including values
-    far past bf16's 8-bit mantissa, misses, and INVALID_KEY pairs."""
+    """The dictionary contraction (_dict_match, digit-split over
+    voting_fast.dict_lookup) returns exactly the (count, row_start) a NumPy
+    dictionary lookup gives, for payload integers up to the engine's 2^24
+    exactness bound — including values far past bf16's 8-bit and TF32's
+    10-bit mantissas, misses, and INVALID_KEY pairs — and across several
+    DICT_CHUNK chunks plus a ragged tail."""
     k_occ = 300
     K_pad = voting_block._ceil_to(k_occ, voting_block.LANES)
     keys = rng.choice(1 << 20, size=k_occ, replace=False).astype(np.int32)
@@ -151,23 +153,27 @@ def test_dict_match_digits_exact(rng):
         occ_keys=jnp.asarray(occ_keys), occ_vals=jnp.asarray(occ_vals),
         pair2d=jnp.zeros((1, 128), jnp.uint32), k_occ=k_occ, n_rows=0)
 
-    hits = rng.choice(keys, size=900).astype(np.int32)
+    n = 2 * voting_fast.DICT_CHUNK + 777
+    hits = rng.choice(keys, size=n - 400).astype(np.int32)
     misses = rng.choice(1 << 20, size=300).astype(np.int32)
     invalid = np.full((100,), np.iinfo(np.int32).max, np.int32)
-    flat = jnp.asarray(np.concatenate([hits, misses, invalid]))
+    flat = np.concatenate([hits, misses, invalid])
+    rng.shuffle(flat)
 
-    cnt_d, brs_d = voting_block._dict_match_digits(flat, bt)
-    cnt_r, brs_r = voting_block._dict_match(flat, bt)
-    np.testing.assert_array_equal(np.asarray(cnt_d), np.asarray(cnt_r))
-    np.testing.assert_array_equal(np.asarray(brs_d), np.asarray(brs_r))
+    cnt, brs = voting_block._dict_match(jnp.asarray(flat), bt)
+    lut = {int(k): (int(c), int(r)) for k, (c, r)
+           in zip(keys, occ_vals[:k_occ].astype(np.int64))}
+    want = np.array([lut.get(int(k), (0, 0)) for k in flat], np.int64)
+    np.testing.assert_array_equal(np.asarray(cnt), want[:, 0])
+    np.testing.assert_array_equal(np.asarray(brs), want[:, 1])
 
 
 def test_chunk_row_map_full_buffer_empty_trailing_row():
     """The exactly-full-buffer corner: an empty trailing reference row's
     start chunk equals n_chunks (one past the end). It must DROP from the
     chunk→row map — the pre-fix clip to n_chunks − 1 credited the last
-    data chunk to the empty row, silently corrupting its tallies (TPU
-    kernel output routing; bit-equality invariant)."""
+    data chunk to the empty row, silently corrupting its tallies (tally
+    routing; bit-equality invariant)."""
     chunk_rows, n_chunks = 4, 4
     # Row 0 owns all 16 vote rows (chunks 0-3); row 1 is empty and starts
     # at row 16 == row_cap.
@@ -186,7 +192,7 @@ def test_chunk_row_map_full_buffer_empty_trailing_row():
 
 
 def test_block_exact_full_vote_cap_bit_equal(rng):
-    """End-to-end guard for the same corner on the XLA twin: size vote_cap
+    """End-to-end guard for the same corner on the tally: size vote_cap
     EXACTLY to the expansion's total padded rows, with the last reference
     row contributing zero votes, and require bit-equal tallies vs the
     readable engine."""
@@ -223,3 +229,79 @@ def test_block_exact_full_vote_cap_bit_equal(rng):
                                   np.asarray(ref.accumulator))
     # The empty trailing row's tallies must be all-zero.
     assert int(np.asarray(res.accumulator)[-1].sum()) == 0
+
+
+def _numpy_tally(pp, alpha_row, owner, R, n_model, n_angle):
+    """Plain per-slot reference for voting_block._tally: decode (m, α_m),
+    bin α with the shared 22-bit fixed-point formula, count into the owning
+    reference row; sentinel / out-of-model slots count nowhere."""
+    bits = voting_block.ALPHA_BITS
+    mask = (1 << bits) - 1
+    pp = pp.astype(np.int64)
+    m = pp >> bits
+    a_m = pp & mask
+    w = (alpha_row.astype(np.int64)[:, None] - a_m + (1 << (bits - 1))) & mask
+    a_bin = np.minimum((w * n_angle) >> bits, voting.ALPHA_PAD - 1)
+    acc = np.zeros((R, n_model, voting.ALPHA_PAD), np.int64)
+    r = np.broadcast_to(np.asarray(owner)[:, None], m.shape)
+    ok = m < n_model
+    np.add.at(acc, (r[ok], m[ok], a_bin[ok]), 1)
+    return acc
+
+
+@pytest.mark.parametrize("n_model", [40, 1000])
+def test_tally_row_map_sentinels_and_slack(rng, n_model):
+    """_tally against the plain per-slot reference on the corners the
+    expansion produces: an EMPTY middle reference row (shares its start
+    chunk with the next row), an empty trailing row, capacity-slack chunks
+    of all-sentinel rows, and sentinel slots inside data rows. n_model
+    = 1000 pads the model axis to 1024 (8 blocks of 128), where the
+    sentinel's m = 1023 is a real accumulator column index — it must still
+    be dropped, not counted."""
+    chunk_rows, n_chunks, R = 2, 5, 4
+    row_cap = chunk_rows * n_chunks
+    # Reference rows start (in vote rows): row 0 -> chunks 0-1, row 1
+    # empty, row 2 -> chunk 2, row 3 empty; chunks 3-4 are slack.
+    row_start = jnp.asarray([0, 4, 4, 6], jnp.int32)
+    owner = [0, 0, 0, 0, 2, 2, 3, 3, 3, 3]
+    sentinel = np.uint32(0xFFFFFFFF)
+    m = rng.integers(0, n_model, size=(row_cap, 128)).astype(np.uint32)
+    m[:, :3] = n_model - 1                       # the last model column
+    a_m = rng.integers(0, 1 << voting_block.ALPHA_BITS,
+                       size=(row_cap, 128)).astype(np.uint32)
+    pp = (m << voting_block.ALPHA_BITS) | a_m
+    pp[rng.random((row_cap, 128)) < 0.2] = sentinel
+    pp[6:] = sentinel                            # slack rows: sentinel only
+    alpha_row = rng.integers(0, 1 << voting_block.ALPHA_BITS,
+                             size=(row_cap,)).astype(np.int32)
+
+    got = voting_block._tally(jnp.asarray(pp), jnp.asarray(alpha_row),
+                              row_start, R=R, n_model=n_model,
+                              d_angle=D_ANGLE, chunk_rows=chunk_rows,
+                              row_cap=row_cap)
+    want = _numpy_tally(pp, alpha_row, owner, R, n_model, n_angle=30)
+    np.testing.assert_array_equal(np.asarray(got), want)
+    assert want[1].sum() == 0 and want[3].sum() == 0
+    assert int(np.asarray(got).sum()) == int((pp[:6] != sentinel).sum())
+
+
+def test_block_votes_with_capacity_slack(rng):
+    """A vote_cap far above the expansion's need (capacity slack: trailing
+    chunks of all-sentinel rows) leaves tallies bit-equal to the legacy
+    fast engine and to a tightly sized run."""
+    table, sk, sa, n_m = _keys_and_tables(rng)
+    ft = voting_fast.build_fast_tables(table)
+    probe = voting_block._expand(sk, sa, ft.block, vote_cap=1 << 20,
+                                 chunk_rows=voting_block.CHUNK_ROWS)
+    tight = int(probe[6]) * voting_block.LANES
+    out_tight = voting_block.cast_votes_block(sk, sa, ft.block, n_m,
+                                              D_ANGLE, tight)
+    out_slack = voting_block.cast_votes_block(sk, sa, ft.block, n_m,
+                                              D_ANGLE, 8 * tight)
+    out_fast = voting_fast.cast_votes_fast(sk, sa, ft, n_m, D_ANGLE,
+                                           1 << 18)
+    assert not bool(out_tight.overflowed) and not bool(out_slack.overflowed)
+    np.testing.assert_array_equal(np.asarray(out_slack.accumulator),
+                                  np.asarray(out_tight.accumulator))
+    np.testing.assert_array_equal(np.asarray(out_slack.accumulator),
+                                  np.asarray(out_fast.accumulator))

@@ -120,7 +120,7 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--n_dense", type=int, default=768)
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU backend (keeps the TPU free)")
+                    help="force the CPU backend (keeps the card free)")
     ap.add_argument("--out", type=str, default=None)
     ap.add_argument("--dump", type=str, default=None,
                     help="also save the two depth maps (npz) for offline "

@@ -13,8 +13,10 @@ the requirement every TSDF recognition test documents
 surface mismatches both density and normal smoothing and loses the pose.
 
 Prints one JSON line with per-stage timings (cold = first call incl. XLA
-compile, warm = steady-state) and the recognition result.
-Run on the TPU: python tools/tsdf_smoke.py [--dims 256] [--frames 8]
+compile, warm = steady-state) and the recognition result. The scene
+functions are module-level so chip_smoke.py's TSDF phase fuses the same
+tabletop.
+Usage: python tools/tsdf_smoke.py [--dims 256] [--frames 8] [--img 240]
 """
 
 from __future__ import annotations
@@ -31,6 +33,81 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
+def tabletop_world(rng):
+    """The bumpy-mesh object on a plane: (model points, model normals,
+    world points). The object sits at (0, 0, 1) — its ground-truth pose is
+    a pure translation.
+
+    Dense area-uniform surface samples: the raw 2.5k vertices leave the
+    rendered depth images ~15% filled (pinholes) at 240² — a real sensor
+    returns a dense grid, so sample the mesh like one."""
+    from objective_slam_tpu.utils import pointcloud as pc, synthetic
+
+    verts, faces = synthetic.bumpy_mesh(subdiv=4, bumps=0.35)
+    mp, mn = pc.sample_mesh_surface(verts, faces, 40_000, rng)
+    obj = mp + np.float32([0, 0, 1.0])
+    u = rng.uniform(-2.2, 2.2, size=(40_000, 2)).astype(np.float32)
+    plane = np.concatenate([u, np.full((len(u), 1), -1.05, np.float32)],
+                           axis=1)
+    world = np.concatenate([obj, plane]).astype(np.float32)
+    return mp, mn, world
+
+
+def tracking_clutter():
+    """Three distinct boxy objects around the target: yaw-constraining
+    geometry for frame-to-model tracking (the bare blob+plane scene
+    constrains no yaw — a 7.5°-step orbit on it lost 34/47 frames, measured
+    round 5), exactly the clutter a realistic tabletop has."""
+    from objective_slam_tpu.utils import pointcloud as pc, synthetic
+
+    rngc = np.random.default_rng(7)
+    clutter = []
+    for i in range(3):
+        bv, bf = synthetic.superellipsoid_mesh(subdiv=3, p=4.0,
+                                               bumps=0.05 * (i + 1))
+        cp_i, _ = pc.sample_mesh_surface(bv, bf, 8_000, rngc)
+        cp_i = cp_i * np.float32([0.45, 0.3 + 0.12 * i, 0.55])
+        q = synthetic.random_rotation_quat(rngc)
+        cp_i = cp_i @ synthetic.quat_to_matrix(q).T
+        ang_i = 2 * math.pi * i / 3 + 0.5
+        cp_i += np.float32([1.7 * math.cos(ang_i),
+                            1.7 * math.sin(ang_i), -0.55])
+        clutter.append(cp_i)
+    return clutter
+
+
+def orbit_pose(ang):
+    """World→camera pose of the orbit camera at angle `ang` (radians)."""
+    from objective_slam_tpu.utils import synthetic
+
+    eye = np.float32([3.2 * math.cos(ang), 3.2 * math.sin(ang), 1.6])
+    return synthetic.look_at(eye, (0, 0, 0.5))
+
+
+def fused_model_description(mp, mn, voxel_size, cfg):
+    """Model description through the sensing pipeline: fuse the model into
+    its own volume at the SAME voxel size, extract, d_dist-filter (the
+    CLI's model path, cli.py:266-268 — describing the raw voxel-resolution
+    surface is ~25k points = 0.6G pairwise PPFs), describe."""
+    import objective_slam_tpu as ost
+    from objective_slam_tpu.models import drost, tsdf
+    from objective_slam_tpu.utils import pointcloud as pc
+
+    lo, hi = mp.min(axis=0) - 0.2, mp.max(axis=0) + 0.2
+    md = int(np.ceil(float((hi - lo).max()) / voxel_size / 8.0)) * 8
+    mvol = tsdf.make_volume(origin=lo, dims=(md, md, md),
+                            voxel_size=voxel_size)
+    mvol = tsdf.integrate(mvol, mp, mn)
+    msurf = tsdf.extract_surface(
+        mvol, drost._next_cap(max(int(tsdf.surface_occupancy(mvol)), 1024)))
+    mok = np.asarray(msurf.valid)
+    fp = np.asarray(msurf.points)[mok]
+    fn = np.asarray(msurf.normals)[mok]
+    d_dist = cfg.tau_d * float(pc.bbox_diameter(fp))
+    fp, fn = pc.voxel_downsample_np(fp, fn, d_dist)
+    return ost.build_model_description(fp, fn, cfg)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dims", type=int, default=256)
@@ -39,23 +116,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import jax
-    import objective_slam_tpu as ost
     from objective_slam_tpu.config import PPFConfig
-    from objective_slam_tpu.models import drost, tsdf
+    from objective_slam_tpu.models import tsdf
     from objective_slam_tpu.ops import transforms as tr
-    from objective_slam_tpu.utils import pointcloud as pc, synthetic
+    from objective_slam_tpu.utils import synthetic
 
     rng = np.random.default_rng(0)
-    verts, faces = synthetic.bumpy_mesh(subdiv=4, bumps=0.35)
-    # Dense area-uniform surface samples: the raw 2.5k vertices leave the
-    # rendered depth images ~15% filled (pinholes) at 240² — a real sensor
-    # returns a dense grid, so sample the mesh like one.
-    mp, mn = pc.sample_mesh_surface(verts, faces, 40_000, rng)
-    obj = mp + np.float32([0, 0, 1.0])
-    u = rng.uniform(-2.2, 2.2, size=(40_000, 2)).astype(np.float32)
-    plane = np.concatenate([u, np.full((len(u), 1), -1.05, np.float32)],
-                           axis=1)
-    world = np.concatenate([obj, plane]).astype(np.float32)
+    mp, mn, world = tabletop_world(rng)
 
     D = args.dims
     vs = 5.0 / D                                    # 5 m cube -> 2 cm @256
@@ -64,33 +131,14 @@ def main(argv=None) -> int:
     cfg = PPFConfig(max_poses=512, ref_point_df=2, refine_icp=True,
                     icp_iterations=8)
     rec = tsdf.StreamingRecognizer(vol, cfg)
-
-    # Model description through the sensing pipeline: fuse the model into
-    # its own volume at the SAME voxel size, extract, describe.
-    lo, hi = mp.min(axis=0) - 0.2, mp.max(axis=0) + 0.2
-    md = int(np.ceil(float((hi - lo).max()) / vs / 8.0)) * 8
-    mvol = tsdf.make_volume(origin=lo, dims=(md, md, md), voxel_size=vs)
-    mvol = tsdf.integrate(mvol, mp, mn)
-    msurf = tsdf.extract_surface(
-        mvol, drost._next_cap(max(int(tsdf.surface_occupancy(mvol)), 1024)))
-    mok = np.asarray(msurf.valid)
-    fp = np.asarray(msurf.points)[mok]
-    fn = np.asarray(msurf.normals)[mok]
-    # d_dist-filter the fused model surface before describing it (the CLI's
-    # model path, cli.py:266-268) — describing the raw voxel-resolution
-    # surface is ~25k points = 0.6G pairwise PPFs.
-    d_dist = cfg.tau_d * float(pc.bbox_diameter(fp))
-    fp, fn = pc.voxel_downsample_np(fp, fn, d_dist)
-    desc = ost.build_model_description(fp, fn, cfg)
+    desc = fused_model_description(mp, mn, vs, cfg)
     rec.register_model("blob", desc)
 
     h = w = args.img
     intr = (0.9 * w, 0.9 * w, w / 2 - 0.5, h / 2 - 0.5)
     t_int = []
     for f in range(args.frames):
-        ang = 2 * math.pi * f / args.frames
-        eye = np.float32([3.2 * math.cos(ang), 3.2 * math.sin(ang), 1.6])
-        T_cw = synthetic.look_at(eye, (0, 0, 0.5))
+        T_cw = orbit_pose(2 * math.pi * f / args.frames)
         depth = synthetic.render_depth(world, T_cw, intr, (h, w))
         t0 = time.perf_counter()
         rec.integrate_depth_frame(depth, intr, T_cw)
@@ -105,9 +153,7 @@ def main(argv=None) -> int:
                              voxel_size=vs)
     frames_cached = []
     for f in range(args.frames):
-        ang = 2 * math.pi * f / args.frames
-        eye = np.float32([3.2 * math.cos(ang), 3.2 * math.sin(ang), 1.6])
-        T_cw = synthetic.look_at(eye, (0, 0, 0.5))
+        T_cw = orbit_pose(2 * math.pi * f / args.frames)
         frames_cached.append((synthetic.render_depth(world, T_cw, intr,
                                                      (h, w)), T_cw))
     occ_blocks = max(int(tsdf.band_block_occupancy(vol_b, d, intr, T))
@@ -140,8 +186,7 @@ def main(argv=None) -> int:
     surf, t_surf_cold, t_surf = timed(do_surface)
     assert not bool(surf.overflowed), "capacity-from-occupancy overflowed"
 
-    T_wc = np.linalg.inv(synthetic.look_at(
-        np.float32([3.2, 0, 1.6]), (0, 0, 0.5)))
+    T_wc = np.linalg.inv(orbit_pose(0.0))
 
     def do_ray():
         view = tsdf.raycast_depth(rec.volume, intr, T_wc, (h, w))
@@ -176,35 +221,17 @@ def main(argv=None) -> int:
     # the blob's rotationally-symmetric attractor at the frame-0 pose and
     # fused garbage — the failure that motivated the tracking_lost gate.
     #
-    # The tracked world also needs yaw-constraining geometry: the bare
-    # blob+plane scene is tracking-hostile (the plane constrains no yaw,
-    # the blob barely any — a 7.5°-step orbit on it still lost 34/47
-    # frames, measured round 5), exactly the scene class real KinFu
-    # fails on. A realistic tabletop has clutter; three distinct boxy
-    # objects around the target anchor rotation from every viewpoint.
-    # Recognition still targets the blob among these distractors.
-    rngc = np.random.default_rng(7)
-    clutter = []
-    for i in range(3):
-        bv, bf = synthetic.superellipsoid_mesh(subdiv=3, p=4.0,
-                                               bumps=0.05 * (i + 1))
-        cp_i, _ = pc.sample_mesh_surface(bv, bf, 8_000, rngc)
-        cp_i = cp_i * np.float32([0.45, 0.3 + 0.12 * i, 0.55])
-        q = synthetic.random_rotation_quat(rngc)
-        cp_i = cp_i @ synthetic.quat_to_matrix(q).T
-        ang_i = 2 * math.pi * i / 3 + 0.5
-        cp_i += np.float32([1.7 * math.cos(ang_i),
-                            1.7 * math.sin(ang_i), -0.55])
-        clutter.append(cp_i)
-    world_t = np.concatenate([world] + clutter).astype(np.float32)
+    # The tracked world also needs yaw-constraining geometry (see
+    # tracking_clutter); recognition still targets the blob among these
+    # distractors.
+    world_t = np.concatenate([world] + tracking_clutter()) \
+        .astype(np.float32)
     n_track = max(6 * args.frames, 48)
     drift = []
     t_trk = []
     lost_frames = 0
     for f in range(n_track):
-        ang = 2 * math.pi * f / n_track
-        eye = np.float32([3.2 * math.cos(ang), 3.2 * math.sin(ang), 1.6])
-        T_gt = synthetic.look_at(eye, (0, 0, 0.5))
+        T_gt = orbit_pose(2 * math.pi * f / n_track)
         depth = synthetic.render_depth(world_t, T_gt, intr, (h, w))
         t0 = time.perf_counter()
         res_t = rec2.track_depth_frame(depth, intr,
